@@ -2,7 +2,7 @@
 """Example: encrypted dot product <x, w> with rotation-based slot summation.
 
 Demonstrates the full API: keygen, slot encoding, pmult, hoisted rotations
-for the log-depth sum tree, decrypt. Works on CPU (small N) or TPU.
+for the log-depth sum tree, decrypt. Works on CPU (small N) or a GPU (JAX_PLATFORMS=cuda).
 
     python examples/encrypted_dot_product.py
 """
@@ -18,8 +18,8 @@ import numpy as np
 def main():
     import jax
 
-    # Small-N demo: CPU by default (set HOMULATOR_TPU=1 to run on TPU).
-    if not os.environ.get("HOMULATOR_TPU"):
+    # Small-N demo: CPU unless JAX_PLATFORMS names a backend (e.g. cuda).
+    if not os.environ.get("JAX_PLATFORMS"):
         jax.config.update("jax_platforms", "cpu")
 
     from homulator_tpu.api import CkksEngine

@@ -12,7 +12,7 @@ full op set including level descent and scale management (every mult is
 followed by the rescale its consumer needs; align_levels reconciles the
 two polynomial branches).
 
-Works on CPU (small N) or TPU (HOMULATOR_TPU=1).
+Runs on the CPU unless JAX_PLATFORMS names a backend (e.g. cuda).
 
     python examples/encrypted_logreg.py
 """
@@ -28,7 +28,7 @@ import numpy as np
 def main():
     import jax
 
-    if not os.environ.get("HOMULATOR_TPU"):
+    if not os.environ.get("JAX_PLATFORMS"):
         jax.config.update("jax_platforms", "cpu")
 
     from homulator_tpu.api import CkksEngine

@@ -18,7 +18,7 @@ baby rotations share one ModUp via the hoisted-rotation API
 (CkksEngine.hrotate_hoisted) — d=16 costs 4 hoisted + 3 giant key
 switches instead of 15 plain rotations.
 
-Works on CPU (small N) or TPU (HOMULATOR_TPU=1).
+Runs on the CPU unless JAX_PLATFORMS names a backend (e.g. cuda).
 
     python examples/encrypted_matvec_bsgs.py
 """
@@ -34,7 +34,7 @@ import numpy as np
 def main():
     import jax
 
-    if not os.environ.get("HOMULATOR_TPU"):
+    if not os.environ.get("JAX_PLATFORMS"):
         jax.config.update("jax_platforms", "cpu")
 
     from homulator_tpu.api import CkksEngine

@@ -1,6 +1,6 @@
-"""homulator_tpu: a TPU-native RNS-CKKS ciphertext-operation framework.
+"""homulator_tpu: an RNS-CKKS ciphertext-operation framework in JAX.
 
-Implements, for real on TPU hardware, the datapaths that the reference
+Implements, for real on an NVIDIA GPU (H100), the datapaths that the reference
 Homulator simulator (FHE-ACCELE/Homulator) models cycle-accurately:
 NTT/iNTT, elementwise modular arithmetic, base conversion, automorphism,
 hybrid key switching, rescale — exposed as the operation set

@@ -21,10 +21,9 @@ import numpy as np
 from .context import COEFF, EVAL, Ciphertext, DeviceContext, Plaintext
 from .ops.automorph import automorph_eval
 from .ops.keyswitch import (
-    hpip_acc, inner_product_moddown, inner_product_pieces, keyswitch,
-    keyswitch_fused, keyswitch_pieces, moddown_pair, moddown_pair2,
-    moddown_rescale,
-    moddown_rescale2, modup_all, modup_conv_all, modup_convs_coeff,
+    inner_product_moddown, inner_product_pieces, keyswitch,
+    keyswitch_pieces, moddown_pair, moddown_pair2, moddown_rescale,
+    moddown_rescale2, modup_all, modup_conv_all,
 )
 from .ops.modmath import modadd, modsub, mont_mul, to_mont
 from .ops.ntt import intt, ntt
@@ -32,14 +31,6 @@ from .ops.rescale import rescale_poly
 from .params import CkksParams
 from .refimpl import RefCkks, RefPlaintext
 from .stats import Statistic, op_modmul_count
-
-
-# Route key switches through the fused ModUp-NTT+inner-product Pallas
-# kernel (ops/hpip_pallas.py) instead of the piecewise path. Off by
-# default: bit-exact but measured slower on v5e (BENCH_NOTES "HPIP
-# bake-off" — both halves are VPU-bound, so the fusion's DMA savings
-# don't pay for Mosaic's slower Montgomery codegen).
-USE_FUSED_HPIP = False
 
 
 # --------------------------------------------------------------------------
@@ -70,29 +61,14 @@ def _pmult_graph(a, pt, q, qinv, r2):
 
 def _keyswitch_rescale_tail(d0, d1, d2, evk_mont, kt, last_nt, out_nt,
                             rs_qinv_mont):
-    """KeySwitch(d2) -> relinearize add -> 2x Rescale. On the accelerated
-    path the ModDown + add + Rescale of each component run as ONE fused
+    """KeySwitch(d2) -> relinearize add -> 2x Rescale. On the piecewise
+    pipeline the ModDown + add + Rescale of each component run as ONE fused
     division by P*q_last (ops/keyswitch.moddown_rescale — bit-identical)."""
     q = kt.main_nt.q[:, None, None]
-    alpha = kt.special_nt.q.shape[0]
-    if USE_FUSED_HPIP and kt.tail is not None and kt.main_nt.shard_axis is None:
-        # Fused ModUp-NTT + evk inner product (the HPIP kernel), then the
-        # fused moddown+rescale tails. Bit-exact but measured SLOWER than
-        # the pieces path on v5e (1.08 ms vs 0.76 ms for the modup+IP
-        # chain: both halves are VPU-bound so fusing them buys no overlap,
-        # and Mosaic's interleaved Montgomery MAC stream is slower than
-        # XLA's fusion of the same math — BENCH_NOTES "HPIP bake-off"), so
-        # routing keeps the pieces path; flip USE_FUSED_HPIP on hardware
-        # where the evk stream, not the VPU, is the binding resource.
-        acc = hpip_acc(modup_convs_coeff(d2, kt), d2, evk_mont, kt)
-        return moddown_rescale2(
-            (acc[0, :alpha], acc[0, alpha:]),
-            (acc[1, :alpha], acc[1, alpha:]), d0, d1, kt,
-        )
     if kt.tail is not None and kt.main_nt.shard_axis is None:
         convs = modup_conv_all(d2, kt)
         acc0, acc1 = inner_product_pieces(convs, d2, evk_mont, kt)
-        # Both tails batched: one rep=2 kernel grid per NTT stage and one
+        # Both tails batched: one rep=2 transform per NTT stage and one
         # batched elementwise chain (ops/keyswitch.moddown_rescale2).
         return moddown_rescale2(acc0, acc1, d0, d1, kt)
     if kt.tail is not None:
@@ -136,12 +112,8 @@ def _hrotate_graph(a, perm, rotk_mont, kt):
     q = main.q[:, None, None]
     r0 = automorph_eval(a[0], perm)
     r1 = automorph_eval(a[1], perm)
-    if USE_FUSED_HPIP and main.use_pallas and main.shard_axis is None:
-        # Fused HPIP kernel path (see _keyswitch_rescale_tail for why it
-        # is off by default on v5e).
-        e0, e1 = keyswitch_fused(r1, rotk_mont, kt)
-    elif main.use_pallas:
-        # Accelerated piecewise path: own digit rows pass through without
+    if main.piecewise:
+        # Piecewise pipeline: own digit rows pass through without
         # the concat/iNTT/NTT round trip, and ModDown never materializes
         # the [alpha+level, N] accumulator.
         e0, e1 = keyswitch_pieces(r1, rotk_mont, kt)
@@ -181,7 +153,7 @@ def _hrotate_hoisted_graph(a, perms, rotks, kt):
     main = kt.main_nt
     q = main.q[:, None, None]
     outs = []
-    if main.use_pallas:
+    if main.piecewise:
         # Piecewise hoisting: share one ModUp's conversion outputs; the
         # automorphism is applied per piece (it commutes row-wise).
         convs = modup_conv_all(a[1], kt)
@@ -212,10 +184,10 @@ def _hrotate_hoisted_graph(a, perms, rotks, kt):
 @jax.jit
 def _hrotate_hoisted_scan_graph(a, perm_stack, rotk_stack, kt):
     """Hoisted rotations with the per-rotation tail as a lax.scan body:
-    bit-identical to _hrotate_hoisted_graph on the accelerated path, but
+    bit-identical to _hrotate_hoisted_graph on the piecewise pipeline, but
     the program size is CONSTANT in the rotation count (the inlined form
-    grows one key switch per rotation — too large for k >= ~4 at set B
-    through the remote-compile path). perm_stack: int32[k, N];
+    grows one key switch per rotation, and compile time with it).
+    perm_stack: int32[k, N];
     rotk_stack: [k, dnum, 2, K, R, C]."""
     main = kt.main_nt
     q = main.q[:, None, None]
@@ -464,10 +436,10 @@ class CkksEngine:
         )
         rotks = tuple(self.rot_keys[s] for s in steps)
         kt = self.dc.keyswitch_tables(a.level)
-        if kt.main_nt.use_pallas and len(steps) >= 4:
+        if kt.main_nt.piecewise and len(steps) >= 4:
             # scan form: program size constant in the rotation count
             # (bit-identical; the inlined form grows one key switch per
-            # rotation and overwhelms the compile path for large k).
+            # rotation, and compile time with it).
             outs = _hrotate_hoisted_scan_graph(
                 a.data, jnp.stack(perms), jnp.stack(rotks), kt)
         else:

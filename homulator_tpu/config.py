@@ -6,7 +6,7 @@ The reference reads flat `key = value` uint32 files with `#` comments
 `config_4.cfg` / `config_4_N15.cfg` work unchanged — but only the keys
 that describe the *workload* (N) matter to a real implementation; the
 modeled-hardware keys (unit delays, FIFO depths, MAC grid shapes) are
-accepted and surfaced for reference but do not configure TPU kernels.
+accepted and surfaced for reference but do not configure the device code.
 """
 
 from __future__ import annotations

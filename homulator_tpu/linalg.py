@@ -18,8 +18,7 @@ packaged as a library:
                                  scale — the keyswitch noise of the
                                  log2(slots) rotations lands ~4 orders
                                  below the working scale instead of at
-                                 gate magnitude (the round-5 logreg
-                                 lesson, BENCH_NOTES "noise budget")
+                                 gate magnitude
 
 All functions are engine-level (one dispatch per op) and exact about
 level/scale bookkeeping; the fused one-XLA-program forms of the same
@@ -62,9 +61,7 @@ def bsgs_matvec(eng, ct_x: Ciphertext, M: np.ndarray, *,
     The g-1 baby rotations share one ModUp (eng.hrotate_hoisted); each
     giant group pays one key switch — d = g*(d/g) diagonals cost
     (g-1) hoisted + (d/g - 1) plain key switches instead of d-1.
-    Measured at set B (d=64): 41.0 ms end-to-end as one program
-    (outLogs/workloads/matvec_bsgs.jsonl). Returns level-1 (rescaled)
-    unless rescale_out=False."""
+    Returns level-1 (rescaled) unless rescale_out=False."""
     M = np.asarray(M)
     d = M.shape[0]
     assert M.shape == (d, d), M.shape

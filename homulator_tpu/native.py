@@ -1,29 +1,57 @@
 """ctypes bindings for the native host core (native/ckks_core.cpp).
 
-Loads libckks_core.so if present (build with `make -C native`); callers
-fall back to the numpy reference path when unavailable. The native kernels
-are bit-identical to refimpl.py (asserted in tests/test_native.py).
+The library is compiled from that source with the host's C++ compiler at
+first use, into `<checkout>/build/` under a name keyed by the source's
+hash (`python -c "from homulator_tpu import native; native.build()"`
+builds it ahead of time). Callers fall back to the numpy reference path
+when no compiler is available. The native kernels are bit-identical to
+refimpl.py (asserted in tests/test_native.py).
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
+import shutil
+import subprocess
 from typing import Optional
 
 import numpy as np
 
+from .runtime import ROOT, build_dir
+
+_SRC = os.path.join(ROOT, "native", "ckks_core.cpp")
+_FLAGS = ["-O3", "-march=native", "-fPIC", "-Wall", "-std=c++17", "-shared"]
+# OpenMP threads the per-limb loops; a compiler without libgomp builds the
+# same code single-threaded (the pragmas are then ignored).
+_OPENMP = ["-fopenmp"]
+_NO_OPENMP = ["-Wno-unknown-pragmas"]
 _LIB: Optional[ctypes.CDLL] = None
 _TRIED = False
 
 _U64P = np.ctypeslib.ndpointer(dtype=np.uint64, flags="C_CONTIGUOUS")
 
 
-def _lib_path() -> str:
-    return os.path.join(
-        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-        "native", "libckks_core.so",
-    )
+def build() -> Optional[str]:
+    """Compile the library if this source has no build yet; return its
+    path, or None without a C++ compiler. Writes a temporary file and
+    renames it, so concurrent builders never load a half-written library."""
+    cxx = shutil.which(os.environ.get("CXX", "g++"))
+    if cxx is None:
+        return None
+    with open(_SRC, "rb") as f:
+        tag = hashlib.sha1(f.read()).hexdigest()[:12]
+    out = os.path.join(build_dir(), f"libckks_core-{tag}.so")
+    if not os.path.exists(out):
+        tmp = f"{out}.{os.getpid()}.tmp"
+        res = subprocess.run([cxx, *_FLAGS, *_OPENMP, "-o", tmp, _SRC],
+                             capture_output=True, text=True)
+        if res.returncode != 0:
+            subprocess.run([cxx, *_FLAGS, *_NO_OPENMP, "-o", tmp, _SRC],
+                           check=True)
+        os.replace(tmp, out)
+    return out
 
 
 def load() -> Optional[ctypes.CDLL]:
@@ -31,8 +59,8 @@ def load() -> Optional[ctypes.CDLL]:
     if _TRIED:
         return _LIB
     _TRIED = True
-    path = _lib_path()
-    if not os.path.exists(path):
+    path = build()
+    if path is None:
         return None
     lib = ctypes.CDLL(path)
     c_int, c_ll = ctypes.c_int, ctypes.c_longlong

@@ -2,26 +2,23 @@
 
 Everything here runs once at context-construction time with exact Python
 integers (no device code). The design decision that shapes the whole
-framework (SURVEY.md "hard parts" #1): TPUs have no native 64-bit integer
-multiply, so all device arithmetic is uint32 with Montgomery reduction at
-radix R = 2**32 and primes q in (2**28, 2**32/6). That keeps
+framework (SURVEY.md "hard parts" #1): device data stays uint32 (JAX's
+64-bit mode is a global switch), so all device arithmetic is uint32 with
+Montgomery or Shoup reduction at radix R = 2**32 and primes q in
+(2**28, 2**32/6). That keeps
 
   * a*b with a, b < 2**30  ->  128-bit-free (hi, lo) uint32 pair math,
   * REDC output  (a*b + m*q)/R < 2**28 + q < 2*q  ->  one conditional subtract,
   * modadd sums < 2**31  ->  no overflow,
-  * 6q < 2**32           ->  the NTT kernels' lazy [0, 6q) stage values and
-                             [0, 3q) approximate-Shoup products never wrap.
+  * 6q < 2**32           ->  lazy accumulations up to 6q never wrap.
 
 The reference models 36-bit words (config_4.cfg:9 `elementBitWidth = 36`);
-we use more, smaller primes for the same total modulus bits, which is the
-idiomatic mapping onto 32-bit TPU vector lanes. Concretely (generated
-primes average 29.30 effective bits at N=2^16): the reference's set-B
-workload `hmult 45 35 15` models a 36*45 = 1620-bit main / 1260-bit live /
-540-bit special modulus, which this framework matches with L=56, level=43,
-alpha=19 (dnum stays 3). `scripts/bench_parity36.py` measures hmult at the
-matched shape and writes PARITY36.json (see BENCH_NOTES.md "Bit-width
-parity"), so the headline number exists at the reference's limb counts AND
-at its modulus magnitude.
+we use more, smaller primes for the same total modulus bits, which maps
+onto 32-bit device words. Concretely (generated primes average 29.30
+effective bits at N=2^16): the reference's set-B workload `hmult 45 35 15`
+models a 36*45 = 1620-bit main / 1260-bit live / 540-bit special modulus,
+which this framework matches with L=56, level=43, alpha=19 (dnum stays 3);
+`scripts/bench_parity36.py` measures hmult at that matched shape.
 """
 
 from __future__ import annotations
@@ -38,10 +35,10 @@ R_MASK = R - 1
 PRIME_MAX_BITS = 30
 PRIME_MIN_BITS = 28
 
-# Hard cap below 2**32 / 6: the Pallas NTT kernels run Harvey-style lazy
-# butterflies with an approximate (3-multiply) Shoup high-word whose error
-# is at most 1, so products land in [0, 3q) and stage values in [0, 6q).
-# 6q < 2**32 keeps every intermediate wrap-free in uint32 lanes.
+# Hard cap below 2**32 / 6: lazy accumulations (the approximate-Shoup
+# products of modmath.shoup_mul_lazy3 land in [0, 3q), sums of two in
+# [0, 6q)) stay wrap-free in uint32 when 6q < 2**32. The primes (and so
+# every table and key) are unchanged by this cap since it was set.
 PRIME_CAP = (1 << 32) // 6  # 715827882; primes are generated strictly below
 
 
@@ -87,7 +84,7 @@ def gen_ntt_primes(n: int, count: int, start_bits: int = PRIME_MAX_BITS) -> Tupl
     two_n = 2 * n
     primes: List[int] = []
     # Largest candidate of the form k*2n + 1 below min(2**start_bits, PRIME_CAP)
-    # (see PRIME_CAP: the lazy NTT kernels need 6q < 2**32).
+    # (see PRIME_CAP: lazy sums need 6q < 2**32).
     k = (min((1 << start_bits), PRIME_CAP) - 2) // two_n
     while len(primes) < count:
         cand = k * two_n + 1

@@ -38,7 +38,7 @@ def bconv_step2(
     out_qinv: jnp.ndarray,
 ) -> jnp.ndarray:
     """out[j] = sum_i xhat[i] * mat[j, i] mod out_q[j]  -> [Mout, ...].
-    (jnp graph path; the fused Pallas kernel lives in bconv_fused.py.)"""
+    (Montgomery graph path; the bf16 conversion lives in bconv_fused.py.)"""
     nd = xhat.shape[0]
     rank = xhat.ndim
     oq = _bcol(out_q, rank)

@@ -69,24 +69,23 @@ def modup_digit_eval(
 ) -> jnp.ndarray:
     """Digit d lifted to the ext basis, EVAL domain [alpha+level, N].
 
-    Accelerated path: the conversion reproduces own-digit residues exactly
-    (only the t = j term of sum_t x_hat[t]*[Q_d/q_t] survives mod q_j), so
-    own rows are copied straight from the eval-domain input — they skip
-    the bconv matmul AND the per-digit NTT. Only the other rows run the
-    fused bconv kernel + NTT (ops/bconv_fused.py).
+    Piecewise pipeline: the conversion reproduces own-digit residues
+    exactly (only the t = j term of sum_t x_hat[t]*[Q_d/q_t] survives mod
+    q_j), so own rows are copied straight from the eval-domain input —
+    they skip the conversion AND the per-digit NTT. Only the other rows
+    run the bf16 conversion + NTT (ops/bconv_fused.py).
     """
     dt = kt.digits[d]
     lo, hi = dt.lo, dt.hi
     alpha = kt.special_nt.q.shape[0]
-    if not kt.ext_nt.use_pallas:
+    if not kt.ext_nt.piecewise:
         return ntt(modup_digit(c_coeff, kt, d), kt.ext_nt)
     from .bconv_fused import bconv_fused
 
     own = c_coeff[lo:hi]
     conv = bconv_fused(
         own, dt.step1_pl, dt.step1_sh, kt.main_nt.q[lo:hi],
-        dt.mat_bf16, dt.horner_sh, dt.other_nt.q,
-        interpret=kt.ext_nt.interpret, center=True,
+        dt.mat_bf16, dt.horner_sh, dt.other_nt.q, center=True,
     )
     conv_eval = ntt(conv, dt.other_nt)
     return jnp.concatenate(
@@ -103,13 +102,12 @@ def moddown(c_ext: jnp.ndarray, kt: KeySwitchLevelTables) -> jnp.ndarray:
     b = intt(c_ext[:alpha], kt.special_nt)  # special limbs to coeff
     sp_q = kt.special_nt.q
     sp_qinv = kt.special_nt.qinv
-    if kt.main_nt.use_pallas:
+    if kt.main_nt.piecewise:
         from .bconv_fused import bconv_fused
 
         conv = bconv_fused(
             b, kt.moddown_s1_pl, kt.moddown_s1_sh, sp_q,
-            kt.moddown_bf16, kt.moddown_horner_sh, kt.main_nt.q,
-            interpret=kt.main_nt.interpret, center=True,
+            kt.moddown_bf16, kt.moddown_horner_sh, kt.main_nt.q, center=True,
         )
     else:
         bhat = bconv_step1(b, kt.moddown_s1_mont, sp_q, sp_qinv)
@@ -123,7 +121,7 @@ def moddown(c_ext: jnp.ndarray, kt: KeySwitchLevelTables) -> jnp.ndarray:
     mq = kt.main_nt.q[:, None, None]
     mqi = kt.main_nt.qinv[:, None, None]
     diff = modsub(c_ext[alpha:], conv_eval, mq)
-    if kt.main_nt.use_pallas:
+    if kt.main_nt.piecewise:
         return shoup_mul(diff, kt.pinv_pl[:, None, None], kt.pinv_sh[:, None, None], mq)
     return mont_mul(diff, kt.pinv_mont[:, None, None], mq, mqi)
 
@@ -140,8 +138,7 @@ def moddown_pair(acc, kt: KeySwitchLevelTables) -> jnp.ndarray:
 
     conv = bconv_fused(
         b, kt.moddown_s1_pl, kt.moddown_s1_sh, kt.special_nt.q,
-        kt.moddown_bf16, kt.moddown_horner_sh, kt.main_nt.q,
-        interpret=kt.main_nt.interpret, center=True,
+        kt.moddown_bf16, kt.moddown_horner_sh, kt.main_nt.q, center=True,
     )
     conv_eval = ntt(conv, kt.main_nt)
     mq = kt.main_nt.q[:, None, None]
@@ -151,7 +148,7 @@ def moddown_pair(acc, kt: KeySwitchLevelTables) -> jnp.ndarray:
 
 def moddown_pair2(acc0, acc1, kt: KeySwitchLevelTables) -> jnp.ndarray:
     """Both key components' concat-free ModDown in ONE batched pass
-    (single-chip: rep=2 kernel grids share the basis tables via i % M).
+    (single-chip: the rep=2 transforms share the basis tables).
     Bit-identical to (moddown_pair(acc0), moddown_pair(acc1)); returns
     the stacked [2, level, n2, n1] result."""
     alpha = kt.special_nt.q.shape[0]
@@ -165,8 +162,7 @@ def moddown_pair2(acc0, acc1, kt: KeySwitchLevelTables) -> jnp.ndarray:
         bconv_fused(
             b[k * alpha: (k + 1) * alpha], kt.moddown_s1_pl,
             kt.moddown_s1_sh, kt.special_nt.q,
-            kt.moddown_bf16, kt.moddown_horner_sh, kt.main_nt.q,
-            interpret=kt.main_nt.interpret, center=True,
+            kt.moddown_bf16, kt.moddown_horner_sh, kt.main_nt.q, center=True,
         )
         for k in (0, 1)
     ]
@@ -183,11 +179,10 @@ def moddown_pair2(acc0, acc1, kt: KeySwitchLevelTables) -> jnp.ndarray:
 def keyswitch_pieces(
     d_eval: jnp.ndarray, evk_mont, kt: KeySwitchLevelTables
 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """Accelerated key switch (no rescale): piecewise ModUp (own rows pass
+    """Piecewise key switch (no rescale): piecewise ModUp (own rows pass
     through, no digit concat) + streaming inner product + concat-free
     ModDown (both keys batched on a single chip). Bit-identical to
-    keyswitch(); requires the Pallas/fused-bconv tables
-    (kt.main_nt.use_pallas)."""
+    keyswitch(); requires the piecewise tables (kt.main_nt.piecewise)."""
     convs = modup_conv_all(d_eval, kt)
     acc0, acc1 = inner_product_pieces(convs, d_eval, evk_mont, kt)
     if kt.main_nt.shard_axis is None:
@@ -196,63 +191,22 @@ def keyswitch_pieces(
     return moddown_pair(acc0, kt), moddown_pair(acc1, kt)
 
 
-def modup_convs_coeff(d_eval: jnp.ndarray, kt: KeySwitchLevelTables):
-    """Accelerated-path ModUp conversions, COEFF domain: per digit, the
-    converted OTHER rows ([m_other, n1, n2], ext order minus own rows),
-    before any NTT. Own rows never appear (exact eval-domain passthrough
-    in the consumers)."""
-    c_coeff = intt(d_eval, kt.main_nt)
-    from .bconv_fused import bconv_fused
-
-    return tuple(
-        bconv_fused(
-            c_coeff[dt.lo:dt.hi], dt.step1_pl, dt.step1_sh,
-            kt.main_nt.q[dt.lo:dt.hi], dt.mat_bf16, dt.horner_sh,
-            dt.other_nt.q, interpret=kt.ext_nt.interpret, center=True,
-        )
-        for dt in kt.digits
-    )
-
-
 def modup_conv_all(d_eval: jnp.ndarray, kt: KeySwitchLevelTables):
-    """Accelerated-path ModUp WITHOUT digit assembly: per digit, only the
+    """Piecewise-pipeline ModUp WITHOUT digit assembly: per digit, only the
     converted OTHER rows ([m_other, N] eval, ext order minus own rows).
     Own rows are d_eval itself (exact passthrough); the inner product
     consumes the pieces directly (inner_product_pieces), so no [K_ext, N]
     concat is ever materialized."""
-    convs = modup_convs_coeff(d_eval, kt)
+    c_coeff = intt(d_eval, kt.main_nt)
+    from .bconv_fused import bconv_fused
+
     return tuple(
-        ntt(conv, dt.other_nt) for conv, dt in zip(convs, kt.digits)
-    )
-
-
-def hpip_acc(convs, d_eval: jnp.ndarray, evk_mont, kt: KeySwitchLevelTables):
-    """Fused ModUp-NTT + evk inner product (ops/hpip_pallas.py): convs are
-    the COEFF-domain conversion pieces (modup_convs_coeff); returns
-    acc uint32[2, K_ext, n2, n1] in [0, q). Single-chip layout only
-    (kt.main_nt.shard_axis is None) — the sharded path phase-splits the
-    NTT around an all_to_all instead."""
-    from .hpip_pallas import hpip_fused
-
-    nt = kt.ext_nt
-    return hpip_fused(
-        convs, d_eval, evk_mont, nt.q, nt.qinv, nt.pfwd,
-        alpha=kt.special_nt.q.shape[0],
-        spans=tuple((dt.lo, dt.hi) for dt in kt.digits),
-        n1=nt.n1, n2=nt.n2, interpret=nt.interpret,
-    )
-
-
-def keyswitch_fused(
-    d_eval: jnp.ndarray, evk_mont, kt: KeySwitchLevelTables
-) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """Accelerated single-chip key switch (no rescale) through the fused
-    HPIP kernel. Bit-identical to keyswitch_pieces / keyswitch."""
-    acc = hpip_acc(modup_convs_coeff(d_eval, kt), d_eval, evk_mont, kt)
-    alpha = kt.special_nt.q.shape[0]
-    return (
-        moddown_pair((acc[0, :alpha], acc[0, alpha:]), kt),
-        moddown_pair((acc[1, :alpha], acc[1, alpha:]), kt),
+        ntt(bconv_fused(
+            c_coeff[dt.lo:dt.hi], dt.step1_pl, dt.step1_sh,
+            kt.main_nt.q[dt.lo:dt.hi], dt.mat_bf16, dt.horner_sh,
+            dt.other_nt.q, center=True,
+        ), dt.other_nt)
+        for dt in kt.digits
     )
 
 
@@ -334,7 +288,7 @@ def moddown_rescale(
         b, kt.moddown_s1_pl[:, None, None], kt.moddown_s1_sh[:, None, None], sp_q
     )
     # Centered conversion: explicit virtual row v_b (bhat is computed out
-    # here, so the kernel runs with center=False and the [-P]_{q_i} column
+    # here, so the conversion runs with center=False and the [-P]_{q_i} column
     # of the tail matrix consumes v_b). The w row is ALSO centered, via
     # its own indicator row against the [-P*q_last]_{q_i} column: the
     # naive "0.5/scale is sub-ulp" analysis misses that the uncentered
@@ -376,7 +330,6 @@ def moddown_rescale(
         jnp.concatenate([bhat_ext, w[None], ind_w[None]], axis=0),
         tt.one_pl, tt.one_sh, tt.in_q,
         tt.bf16, tt.horner_sh, tt.out_nt.q,
-        interpret=kt.main_nt.interpret,
     )
     e = ntt(conv, tt.out_nt)
     oq = tt.out_nt.q[:, None, None]
@@ -394,8 +347,8 @@ def moddown_rescale(
 def moddown_rescale2(acc0, acc1, d0, d1, kt: KeySwitchLevelTables):
     """Both key components' fused ModDown + relin add + Rescale tails in
     ONE batched pass: the specials iNTT, the dropped-limb iNTT and the
-    output NTT broadcast each run as a single rep=2 kernel grid (table
-    slabs shared via i % M), and every elementwise stage is one batched
+    output NTT broadcast each run as a single rep=2 transform (tables
+    shared), and every elementwise stage is one batched
     op over [2, ...] instead of two dispatch chains. Bit-identical to
     (moddown_rescale(acc0, d0), moddown_rescale(acc1, d1)); returns the
     stacked [2, level-1, n2, n1] result directly."""
@@ -444,7 +397,6 @@ def moddown_rescale2(acc0, acc1, d0, d1, kt: KeySwitchLevelTables):
                             axis=0),
             tt.one_pl, tt.one_sh, tt.in_q,
             tt.bf16, tt.horner_sh, tt.out_nt.q,
-            interpret=kt.main_nt.interpret,
         )
         for k in (0, 1)
     ]

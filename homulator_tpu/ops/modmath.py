@@ -1,11 +1,13 @@
-"""uint32 Montgomery modular arithmetic for TPU vector lanes (VPU).
+"""uint32 Montgomery and Shoup modular arithmetic for XLA graphs.
 
 This is the real implementation of what the reference's EWE unit models
 (include/Components.h:155-193: `num_mul` multipliers + `num_add` adders
-computing `a*b + c*d mod q` lanes). TPUs have no 64-bit integer multiply,
-so a 32x32 -> 64 product is synthesized from four 16x16 partial products
-with explicit carry propagation, and reduction is Montgomery REDC at
-radix R = 2**32:
+computing `a*b + c*d mod q` lanes). Device data stays uint32 (JAX's 64-bit
+mode is a global switch), and a 32x32 -> 64 product is synthesized from
+four 16x16 partial products with explicit carry propagation — a form
+inherited from hardware without a widening multiply; the GPU has one, and
+replacing the emulation is an open measurement (ROADMAP Speed 5).
+Reduction is Montgomery REDC at radix R = 2**32:
 
     REDC(hi, lo) = (T + m*q) / R,   m = lo * (-q^{-1}) mod R
 
@@ -27,8 +29,7 @@ from __future__ import annotations
 
 import jax.numpy as jnp
 
-# Plain Python ints (weak-typed) so these never become captured array
-# constants inside Pallas kernels.
+# Plain Python ints (weak-typed) so these never become array constants.
 _U16 = 0xFFFF
 _SIXTEEN = 16
 
@@ -53,8 +54,7 @@ def mul32(a: jnp.ndarray, b: jnp.ndarray):
 
 def mullo32(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
     """Low 32 bits of a*b — uint32 multiplication wraps, which IS the low
-    word. Mosaic lowers the native i32 multiply cheaper than a hand-rolled
-    three-product 16-bit decomposition (measured ~11% on the NTT kernel)."""
+    word (one native multiply, no 16-bit decomposition)."""
     return a * b
 
 
@@ -164,7 +164,7 @@ def shoup_mul(a: jnp.ndarray, w: jnp.ndarray, w_shoup: jnp.ndarray, q) -> jnp.nd
     (the floor-quotient error is at most 1), so one conditional subtract
     lands in [0, q). Cheaper than Montgomery for constant multiplicands
     (~10 vs ~11 hardware multiplies, fewer carries) at the cost of a second
-    precomputed table. Used by the Pallas kernels for twiddles/matrices.
+    precomputed table. Used for twiddles and conversion constants.
     """
     hi = mulhi32(a, w_shoup)
     r = mullo32(a, w) - mullo32(hi, q)
@@ -173,9 +173,8 @@ def shoup_mul(a: jnp.ndarray, w: jnp.ndarray, w_shoup: jnp.ndarray, q) -> jnp.nd
 
 def shoup_mul_lazy(a: jnp.ndarray, w: jnp.ndarray, w_shoup: jnp.ndarray, q) -> jnp.ndarray:
     """Shoup product WITHOUT the final conditional subtract: result in
-    [0, 2q) for any a < 2^32. Harvey-style lazy butterflies keep values in
-    [0, 4q) between stages (valid for q < 2^30) and reduce once at kernel
-    exit — saving the per-butterfly compare/selects."""
+    [0, 2q) for any a < 2^32, for sums that reduce once at the end
+    (lazy_tree_sum, the conversion epilogue)."""
     hi = mulhi32(a, w_shoup)
     return mullo32(a, w) - mullo32(hi, q)
 
@@ -184,7 +183,7 @@ def shoup_mul_lazy3(a: jnp.ndarray, w: jnp.ndarray, w_shoup: jnp.ndarray, q) -> 
     """Cheapest Shoup product: approximate high word (err <= 1), no final
     subtract. Result in [0, 3q) for ANY a < 2^32. Callers must keep lazy
     accumulations under 2^32, which numtheory.PRIME_CAP guarantees for
-    values up to 6q — the NTT kernels' stage invariant."""
+    values up to 6q."""
     hi = mulhi32_approx(a, w_shoup)
     return a * w - hi * q
 

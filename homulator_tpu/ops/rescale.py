@@ -47,6 +47,6 @@ def rescale_poly(
     red_eval = ntt(red, out_nt)
     diff = modsub(c[: level - 1], red_eval, oq)
     mont, pl, sh = qinv_tabs
-    if out_nt.use_pallas:
+    if out_nt.piecewise:
         return shoup_mul(diff, pl[:, None, None], sh[:, None, None], oq)
     return mont_mul(diff, mont[:, None, None], oq, oqi)

@@ -1,6 +1,6 @@
 """Coefficient-axis-sharded NTT: the multi-chip scaling path for large N.
 
-This is the TPU-native version of how the reference scales the polynomial
+This is the device-mesh version of how the reference scales the polynomial
 degree: it splits each poly into N/batchSize batches across unit lanes and
 pays a dedicated cross-lane transpose inside the NTTU
 (interTrans_delay=256, config_4.cfg:48; SURVEY.md §5 "sequence
@@ -10,13 +10,13 @@ the n2 (column) axis:
   step 1   — size-n1 sub-NTTs along n1: local to each device
   twiddle  — elementwise: local
   transpose + reshard — the 4-step inter-transpose: GSPMD lowers the
-             resharding of the transposed array to an ICI all_to_all
+             resharding of the transposed array to an all_to_all
              (exactly the data movement the reference models as its
              inter-cluster stage)
   step 2   — size-n2 sub-NTTs along n2: local again
 
-Uses the jnp (Montgomery) table path, which the SPMD partitioner can
-split; bit-identical to the single-chip kernels.
+Uses the Montgomery table path, which the SPMD partitioner can split;
+bit-identical to the single-device transform.
 """
 
 from __future__ import annotations
@@ -25,7 +25,7 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-from ..context import NttBasis
+from ..context import MONTGOMERY, NttBasis
 from ..ops.modmath import mont_mul
 from ..ops.ntt import _ct_stages, _gs_stages
 
@@ -63,7 +63,7 @@ def make_coeff_sharded_ntt(nb: NttBasis, mesh: Mesh, axis: str = "limb"):
     """Returns (ntt_fn, intt_fn) over [M, n1, n2] / [M, n2, n1] tiles with
     the trailing (column) axis sharded over `axis`. nb must be a jnp-path
     (Montgomery) NttBasis."""
-    assert not nb.use_pallas, "coefficient sharding uses the jnp table path"
+    assert nb.leaf == MONTGOMERY, "coefficient sharding uses the Montgomery tables"
     spec_cols = NamedSharding(mesh, P(None, None, axis))
 
     ntt_fn = jax.jit(

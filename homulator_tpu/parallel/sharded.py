@@ -3,14 +3,14 @@
 Two multi-chip execution paths, both bit-exact vs single chip
 (tests/test_sharding.py):
 
-1. **shard_map + Pallas kernels + explicit ICI collectives** (the
-   performance path, `make_shardmap_hmult` / `make_shardmap_hrotate`):
+1. **shard_map + explicit collectives** (`make_shardmap_hmult` /
+   `make_shardmap_hrotate`):
    every device array keeps its TRAILING (coefficient) axis sharded over
    the mesh's 'coeff' axis — the sequence-parallel analog of how the
    reference splits each polynomial into N/batchSize batches across
    clusters (InsGen.cpp:12, Driver.h:193-246). Under this layout the
-   entire hmult/hrotate graph is device-local — tensor product, the fused
-   bconv MXU kernels (contraction over limbs), the key-switch inner
+   entire hmult/hrotate graph is device-local — tensor product, the bf16
+   base conversions (contraction over limbs), the key-switch inner
    product, ModDown, Rescale — EXCEPT:
 
      * the 4-step NTT inter-transpose: ONE `lax.all_to_all` per transform
@@ -19,12 +19,12 @@ Two multi-chip execution paths, both bit-exact vs single chip
      * the Galois automorphism: ONE whole-shard ppermute + a local gather
        (AUTOU's cross-lane swap network, include/Components.h:201-238) —
        the column map is block-aligned in the bit-reversed eval order, so
-       receive is one shard, (ns-1) x less ICI than an all_gather
+       receive is one shard, (ns-1) x fewer bytes than an all_gather
        (ops/automorph.build_shard_route).
 
-   The single-chip Pallas kernels run unmodified inside the shard_map on
-   their local column slices (the NTT as phase-split halves around the
-   all_to_all, ops/ntt_pallas.py `*_phase*_pallas`). Limb counts never
+   The single-chip graph runs unmodified inside the shard_map on its
+   local column slices (the NTT as phase-split halves around the
+   all_to_all, ops/ntt.py `_fwd_phase*` / `_inv_phase*`). Limb counts never
    constrain the mesh: only n1 and n2 (powers of two, 256 each at N=2^16)
    must divide the 'coeff' axis size.
 
@@ -52,6 +52,7 @@ from ..context import (
 from ..ops.automorph import automorph_eval_sharded, automorph_eval_shardperm
 from ..ops.keyswitch import keyswitch, keyswitch_pieces
 from ..ops.modmath import modadd
+from .mesh import bind_tables, place
 
 
 # --------------------------------------------------------------------------
@@ -65,12 +66,6 @@ def _ntt_basis_specs(nb: NttBasis, axis: str) -> NttBasis:
     def m(a):
         return mid if getattr(a, "ndim", 0) == 3 else P()
 
-    pfwd = (P(), P(), mid, mid, P(), P()) if nb.pfwd else ()
-    pinv = (P(), P(), mid, mid, P(), P()) if nb.pinv else ()
-    # packed tables: replicated except the per-device mid stacks (leading
-    # [ns] device axis at tuple positions 3, 4 — see NttBasis docstring)
-    midp = P(axis, None, None, None)
-    packed_sp = (P(), P(), P(), midp, midp, P(), P())
     return NttBasis(
         q=P(), qinv=P(), r2=P(),
         stage1=tuple(P() for _ in nb.stage1),
@@ -79,11 +74,9 @@ def _ntt_basis_specs(nb: NttBasis, axis: str) -> NttBasis:
         istage1=tuple(P() for _ in nb.istage1),
         tw_mid_inv=m(nb.tw_mid_inv),
         istage2=tuple(P() for _ in nb.istage2),
-        pfwd=pfwd, pinv=pinv,
-        n1=nb.n1, n2=nb.n2, use_pallas=nb.use_pallas,
-        interpret=nb.interpret, shard_axis=nb.shard_axis,
-        pfwd_packed=packed_sp if nb.pfwd_packed else (),
-        pinv_packed=packed_sp if nb.pinv_packed else (),
+        psi=tuple(P() for _ in nb.psi),
+        ipsi=tuple(P() for _ in nb.ipsi),
+        n1=nb.n1, n2=nb.n2, leaf=nb.leaf, shard_axis=nb.shard_axis,
     )
 
 
@@ -124,16 +117,15 @@ def _keyswitch_specs(kt: KeySwitchLevelTables, axis: str) -> KeySwitchLevelTable
 
 
 # --------------------------------------------------------------------------
-# shard_map path (Pallas kernels + explicit collectives)
+# shard_map path (explicit collectives)
 # --------------------------------------------------------------------------
 def make_shardmap_hmult(
     dc: DeviceContext, level: int, mesh: Mesh, *,
     axis: str = "coeff", data_axis: Optional[str] = None,
-    packed: bool = True,
 ):
     """jitted hmult over `mesh` with the coefficient (trailing) axis of
     every array sharded over mesh axis `axis`, running the SINGLE-CHIP
-    Pallas kernels per shard and explicit ICI all_to_all transposes.
+    graph per shard and explicit all_to_all NTT transposes.
 
     Without data_axis: f(a, b, evk) over [2, level, R, C] ciphertexts.
     With data_axis: f(a_batch, b_batch, evk) over [B, 2, level, R, C]
@@ -143,15 +135,9 @@ def make_shardmap_hmult(
     ns = mesh.shape[axis]
     t = dc.params.ntt
     assert t.n1 % ns == 0 and t.n2 % ns == 0, (t.n1, t.n2, ns)
-    # packed=True routes narrow per-shard transforms (c = n2/ns < 128
-    # lanes) through the lane-packed kernels; ntt_basis gates on shape,
-    # so this is a no-op for full-width shards. packed=False keeps the
-    # per-limb kernels (A/B baseline).
-    pack_ns = ns if packed else 0
-    kt = dc.keyswitch_tables(level, shard_axis=axis, pack_ns=pack_ns)
-    last_nt = dc.ntt_basis((level - 1,), shard_axis=axis, pack_ns=pack_ns)
-    out_nt = dc.ntt_basis(dc.main_rows(level - 1), shard_axis=axis,
-                          pack_ns=pack_ns)
+    kt = dc.keyswitch_tables(level, shard_axis=axis)
+    last_nt = dc.ntt_basis((level - 1,), shard_axis=axis)
+    out_nt = dc.ntt_basis(dc.main_rows(level - 1), shard_axis=axis)
     rs = dc.rescale_qinv_mont(level)
 
     kt_sp = _keyswitch_specs(kt, axis)
@@ -177,14 +163,16 @@ def make_shardmap_hmult(
         out_specs=ct_sp,
         check_vma=False,
     )
-    return jax.jit(lambda a, b, evk: f(a, b, evk, kt, last_nt, out_nt, rs))
+    tables = place((kt, last_nt, out_nt, rs), (kt_sp, lnt_sp, ont_sp, rs_sp),
+                   mesh)
+    return bind_tables(f, *tables)
 
 
 def _hrotate_body(a, local_src, rotk, kt, axis, perm_pairs):
     """AUTO (whole-shard ppermute + local gather — the column map is
     block-aligned in the bit-reversed eval order, so receive is ONE local
     shard instead of all_gather's ns-1; ops/automorph.build_shard_route)
-    -> KeySwitch (local Pallas kernels, all_to_all NTT transposes) -> add.
+    -> KeySwitch (local graph, all_to_all NTT transposes) -> add.
     Mirrors _hrotate_graph (api.py) / the reference's HROTATE
     (src/Operation.cpp:1271-1451). perm_pairs=None is the gather-route
     sentinel (non-block-aligned Galois element, ops/automorph.
@@ -197,7 +185,7 @@ def _hrotate_body(a, local_src, rotk, kt, axis, perm_pairs):
     else:
         r0 = automorph_eval_shardperm(a[0], local_src, perm_pairs, axis)
         r1 = automorph_eval_shardperm(a[1], local_src, perm_pairs, axis)
-    if kt.main_nt.use_pallas:
+    if kt.main_nt.piecewise:
         e0, e1 = keyswitch_pieces(r1, rotk, kt)
     else:
         e0, e1 = keyswitch(r1, rotk, kt)
@@ -206,7 +194,6 @@ def _hrotate_body(a, local_src, rotk, kt, axis, perm_pairs):
 
 def make_shardmap_hrotate(
     dc: DeviceContext, level: int, mesh: Mesh, *, axis: str = "coeff",
-    packed: bool = True,
 ):
     """Returns f(a, route, rotk) -> rotated ciphertext data, coefficient
     axis sharded over `axis` (see make_shardmap_hmult). `route` is
@@ -217,9 +204,9 @@ def make_shardmap_hrotate(
     ns = mesh.shape[axis]
     t = dc.params.ntt
     assert t.n1 % ns == 0 and t.n2 % ns == 0, (t.n1, t.n2, ns)
-    kt = dc.keyswitch_tables(level, shard_axis=axis,
-                             pack_ns=ns if packed else 0)
+    kt = dc.keyswitch_tables(level, shard_axis=axis)
     kt_sp = _keyswitch_specs(kt, axis)
+    kt = place(kt, kt_sp, mesh)
     ct_sp = P(None, None, None, axis)
     evk_sp = P(None, None, None, None, axis)
 
@@ -236,15 +223,15 @@ def make_shardmap_hrotate(
             out_specs=ct_sp,
             check_vma=False,
         )
-        return jax.jit(lambda a, lsrc, rotk: f(a, lsrc, rotk, kt))
+        return jax.jit(f)
 
     def run(a, route, rotk):
         local_src, pairs, _ = route
-        return compiled(pairs)(a, local_src, rotk)
+        return compiled(pairs)(a, local_src, rotk, kt)
 
     def lower(a, route, rotk):
         local_src, pairs, _ = route
-        return compiled(pairs).lower(a, local_src, rotk)
+        return compiled(pairs).lower(a, local_src, rotk, kt)
 
     run.lower = lower
     return run
@@ -272,9 +259,8 @@ def transform_calls(params, level: int, op: str):
 
 
 def ici_bytes_per_op(params, level: int, ns: int, op: str = "hmult", *,
-                     route_identity: bool = False,
-                     packed: "bool | None" = None) -> int:
-    """EXACT per-device ICI receive volume (bytes) of one shard_map op at
+                     route_identity: bool = False) -> int:
+    """EXACT per-device receive volume (bytes) of one shard_map op at
     `level` over an ns-way 'coeff' axis — counted from the collective
     schedule of the graph, the analog of the reference's NoC_Mem_Chip
     counter (src/mem.cpp:95). Reconciled against the collectives in the
@@ -285,31 +271,13 @@ def ici_bytes_per_op(params, level: int, ns: int, op: str = "hmult", *,
     receives the rest — (ns-1)/ns * (N/ns) * 4 bytes. Each automorphism is
     ONE whole-shard ppermute (ops/automorph.build_shard_route): receive =
     the local [level, n2, n1/ns] shard = level * N/ns * 4 — (ns-1) x less
-    than the all_gather form it replaced (r3 weak #1). This counts the
-    non-identity worst case by default; Galois elements whose induced
-    block map is the identity emit NO collective at all — pass
-    route_identity=True (from the route's is_identity flag,
-    dc.automorph_shard_route) to bill those correctly (ADVICE r4).
-    (A round-1..2 version of this function reported the all-device total,
-    ns x the per-device receive — caught by the HLO reconciliation.)
-
-    When the shape routes through the LANE-PACKED kernels (k =
-    ntt_pallas.pack_k_for > 0), each transform call's rows round up to a
-    k multiple — the packed all_to_all carries the padded lane-group
-    rows (<= k-1 per call; ~5% at set B ns=8). `packed` overrides the
-    auto-detection for builds that opt out (make_shardmap_* packed=False,
-    the A/B baseline), whose a2as carry unpadded rows.
+    than an all_gather form. This counts the non-identity worst case by
+    default; Galois elements whose induced block map is the identity emit
+    NO collective at all — pass route_identity=True (from the route's
+    is_identity flag, dc.automorph_shard_route) to bill those correctly.
     """
-    from ..ops.ntt_pallas import pack_k_for
-
     n = params.n
-    t = params.ntt
-    k = pack_k_for(t.n1, t.n2, ns)
-    if packed is False:
-        k = 0
-    calls = transform_calls(params, level, op)
-    transforms = (sum(calls) if not k
-                  else sum(-(-c // k) * k for c in calls))
+    transforms = sum(transform_calls(params, level, op))
     autos = 0
     if op == "hrotate" and not route_identity:
         # 2 automorph ppermutes (zero when the requested element's block
@@ -321,7 +289,7 @@ def ici_bytes_per_op(params, level: int, ns: int, op: str = "hmult", *,
 
 
 def ici_bytes_from_lowered(hlo_text: str, ns: int) -> int:
-    """Per-device ICI receive bytes counted from the collectives of a
+    """Per-device receive bytes counted from the collectives of a
     LOWERED shard_map program (jit(f).lower(...).as_text()). The shapes
     inside the manual computation are per-device local shards, so:
 
@@ -331,7 +299,7 @@ def ici_bytes_from_lowered(hlo_text: str, ns: int) -> int:
 
     Used to pin ici_bytes_per_op against the real collective schedule —
     drift in the graph breaks the reconciliation test instead of silently
-    invalidating the published ICI numbers.
+    invalidating the published volumes.
     """
     import re
 

@@ -2,7 +2,7 @@
 
 Built once on the host with exact integer arithmetic (Python ints / numpy
 uint64), consumed by both the CPU reference engine (`refimpl.py`) and the
-TPU device context (`context.py`, which converts multiplicative constants
+device context (`context.py`, which converts multiplicative constants
 to Montgomery form).
 
 Design notes (what the reference models vs. what we build):
@@ -10,7 +10,7 @@ Design notes (what the reference models vs. what we build):
 * The reference simulates address traffic for parameter sets A-D
   (script/README.md:17-22): N in {2^15, 2^16}, maxLevel up to 45, alpha up
   to 28. We implement the real arithmetic for the same grid, with RNS
-  primes < 2**30 (see numtheory.py for why 30-bit on TPU).
+  primes < 2**30 (see numtheory.py for why 30-bit words).
 
 * NTT: the reference's NTTU models a 4-step pipeline
   (phase1 -> intra-transpose -> inter-transpose -> phase2,
@@ -146,7 +146,7 @@ def _ref_ct_ntt(x: np.ndarray, stage_tw: List[np.ndarray], q) -> np.ndarray:
     """Host-exact CT butterfly network along axis -2 of x: [K, n, m] uint64.
 
     This is the algorithmic template both the CPU reference engine and the
-    TPU kernels follow (stage s: view [K, B, 2, H, m]; v *= tw[s][block];
+    device leaves follow (stage s: view [K, B, 2, H, m]; v *= tw[s][block];
     out = (u+v, u-v)).
     """
     K, n, m = x.shape

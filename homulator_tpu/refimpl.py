@@ -14,7 +14,7 @@ the reference models:
   rescale = iNTT last limb -> per-basis NTT -> sub -> mul-qinv
             (src/Operation.cpp:741-911)
 
-Every TPU kernel is validated bit-exactly against this module. All values
+Every device path is validated bit-exactly against this module. All values
 are standard-domain residues < q < 2**30 held in uint64 (products fit).
 """
 
@@ -57,7 +57,7 @@ class KeySwitchKey:
 
 class RefCkks:
     def __init__(self, params: CkksParams, seed: int = 0, use_native=None):
-        """use_native: None = auto (use native/libckks_core.so when built),
+        """use_native: None = auto (use the native library when it builds),
         False = pure numpy (the canonical spec path used by algorithm
         tests), True = require the native library."""
         self.p = params
@@ -430,8 +430,8 @@ class RefCkks:
         r in [0, q_last), the decrypt error gains -(r0 + r1*s)/q_last whose
         r1*s term has mean -(1/2)*sum_j(+-s_j) — a KEY-dependent DC bias
         of ~sqrt(N) coefficient units that the canonical embedding
-        amplifies ~N/pi-fold into a deterministic slot-0 tone (measured
-        1.3e-2 at set B before the fix, BENCH_NOTES r5). Centering makes
+        amplifies ~N/pi-fold into a deterministic slot-0 tone (1.3e-2 of
+        slot error at set B before the fix). Centering makes
         E[r~] ~ 0 and the division a rounding, killing the tone."""
         p = self.p
         level = ct.level

@@ -1,8 +1,8 @@
 // Native host-side CKKS core: exact RNS polynomial kernels in C++.
 //
 // Role in the framework: the reference implements its entire runtime in
-// C++17 (SURVEY.md §2 — Homulator is a pure-C++ machine). Our TPU compute
-// path is JAX/Pallas; this library is the native half of the *host*
+// C++17 (SURVEY.md §2 — Homulator is a pure-C++ machine). Our device compute
+// path is JAX (plus one CUDA kernel); this library is the native half of the *host*
 // runtime: exact integer kernels used for key generation, encode/encrypt,
 // and as a fast oracle for large-N tests (the numpy reference engine stays
 // the canonical spec; this is bit-identical to it and ~an order of

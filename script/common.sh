@@ -3,13 +3,12 @@
 # Mirrors /root/reference/script/para*/micro24_*.sh <cluster>: sweeps the
 # op at every level maxLevel..2 for the set, teeing JSONL into outLogs/.
 #
-#   cluster absent or 1 -> the measured single-chip sweep on the attached
-#                          TPU (scripts/sweep.py, chained-loop timings).
+#   cluster absent or 1 -> the measured single-device sweep on the attached
+#                          GPU (scripts/sweep.py, chained-loop timings).
 #   cluster N > 1       -> the sharded dispatch surface on an N-virtual-
 #                          device CPU mesh via the CLI's 6th positional
-#                          (real multi-chip hardware is not attached here;
-#                          the shard_map+Pallas path runs per level with
-#                          full decrypt --verify instead of timings).
+#                          (the shard_map path runs per level with full
+#                          decrypt --verify instead of timings).
 run_set_op() {
   set_name=$1; op=$2; max_level=$3; alpha=$4; n=$5; cluster=${6:-1}
   root=$(cd "$(dirname "$0")/../.." && pwd)

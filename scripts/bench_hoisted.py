@@ -19,9 +19,9 @@ import numpy as np
 def main() -> int:
     import jax
 
-    jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+    from homulator_tpu.runtime import enable_compile_cache
+
+    enable_compile_cache()
     import jax.numpy as jnp
 
     from homulator_tpu import benchlib

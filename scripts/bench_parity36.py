@@ -6,8 +6,8 @@ The reference models 36-bit machine words (config_4.cfg:9
 `elementBitWidth = 36`), so its set-B workload `hmult 45 35 15` carries a
 36*45 = 1620-bit main modulus, a 36*35 = 1260-bit live modulus and a
 36*15 = 540-bit special modulus. This framework uses <2^30 primes (~29.4
-effective bits each — numtheory.PRIME_CAP keeps 6q < 2^32 for the lazy
-kernels), so magnitude parity needs MORE, SMALLER primes:
+effective bits each — numtheory.PRIME_CAP keeps 6q < 2^32 for lazy
+sums), so magnitude parity needs MORE, SMALLER primes:
 
     L'     = ceil(1620 / eff_bits)   main limbs
     level' = ceil(1260 / eff_bits)   live limbs
@@ -15,8 +15,7 @@ kernels), so magnitude parity needs MORE, SMALLER primes:
 
 computed below from the actually generated primes. This script runs hmult
 at BOTH settings and prints one JSON line with the pair, plus the
-host-side keygen/encode/encrypt setup costs the serving story needs
-(VERDICT round-1 weak #7).
+host-side keygen/encode/encrypt setup costs the serving story needs.
 """
 
 import json
@@ -83,9 +82,9 @@ def run_one(n, max_level, level, alpha, tag, out):
 def main() -> int:
     import jax
 
-    jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+    from homulator_tpu.runtime import enable_compile_cache
+
+    enable_compile_cache()
 
     n = 65536
     out = {"backend": jax.default_backend()}
@@ -95,8 +94,6 @@ def main() -> int:
     run_one(n, 45, 35, 15, "native30", out)
     run_one(n, L36, l36, a36, "parity36", out)
     print(json.dumps(out))
-    with open("/root/repo/PARITY36.json", "w") as f:
-        json.dump(out, f, indent=1)
     return 0
 
 

@@ -63,9 +63,9 @@ def chain_moddown2(acc_sp, acc_main, kt, iters):
 
 
 def main():
-    jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+    from homulator_tpu.runtime import enable_compile_cache
+
+    enable_compile_cache()
 
     params = get_params(n=1 << 16, max_level=45, alpha=15)
     eng = CkksEngine(params, seed=1)

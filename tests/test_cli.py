@@ -2,8 +2,7 @@
 
 In-process `cli.main()` calls on the tiny config; conftest already pinned
 the CPU backend with 8 virtual devices, so the optional [cluster]
-positional exercises both real dispatch layers (shard_map+Pallas and
-GSPMD). Every run goes through `--verify` (full-slot decrypt check) —
+positional exercises both real dispatch layers (shard_map and GSPMD). Every run goes through `--verify` (full-slot decrypt check) —
 a latency print alone would pass on wrong results.
 """
 
@@ -29,14 +28,14 @@ def test_cli_single_chip_ops_verify(op, capsys):
     # the tiny shape that is coeff for hmult (24 transforms * small tiles
     # < the limb row gathers) and limb for hrotate (the coeff path's two
     # automorphism all_gathers dominate; on the limb axis AUTO is free).
-    ("hmult", "dispatch=shard_map+pallas axis=coeff"),
-    ("hrotate", "dispatch=shard_map+pallas axis=limb"),
+    ("hmult", "dispatch=shard_map axis=coeff"),
+    ("hrotate", "dispatch=shard_map axis=limb"),
     ("hadd", "dispatch=gspmd"),
 ])
 def test_cli_cluster_dispatch(op, expect, capsys):
-    """The 6th positional routes key-switch ops to a shard_map+Pallas
-    performance path — the dispatch AXIS picked by exact ICI volume, both
-    volumes printed — and others to GSPMD."""
+    """The 6th positional routes key-switch ops to a shard_map path — the
+    dispatch AXIS picked by exact receive volume, both volumes printed —
+    and others to GSPMD."""
     rc = cli.main(
         ["run", CFG, op, "8", "4", "4", "2", "--verify", "--iters", "1",
          "--platform", "cpu"]
@@ -51,7 +50,7 @@ def test_cli_cluster_dispatch(op, expect, capsys):
 
 @pytest.mark.parametrize("op,axis,cluster", [
     # coeff at cluster 2 only: at ns=4 the tiny 16x16 tile breaks the
-    # kernel-shape guard (16/4 < 8) — itself covered below.
+    # per-shard tile guard (16/4 < 8) — itself covered below.
     ("hmult", "limb", "4"), ("hmult", "coeff", "2"),
     ("hrotate", "limb", "4"), ("hrotate", "coeff", "2"),
 ])
@@ -74,13 +73,14 @@ def test_cli_forced_dispatch(op, axis, cluster, capsys, level="5"):
     )
     outp = capsys.readouterr().out
     assert rc == 0, outp
-    assert f"dispatch=shard_map+pallas axis={axis}" in outp
+    assert f"dispatch=shard_map axis={axis}" in outp
     assert "(forced)" in outp
     assert "verify max-abs-err" in outp
 
 
 def test_cli_forced_coeff_rejects_bad_tiles():
-    """Forcing coeff past the kernel-shape guard fails loudly, not wrongly."""
+    """Forcing coeff past the per-shard tile guard fails loudly, not
+    wrongly."""
     with pytest.raises(SystemExit, match="dispatch coeff"):
         cli.main(["run", CFG, "hmult", "8", "4", "4", "4", "--iters", "1",
                   "--platform", "cpu", "--dispatch", "coeff"])
@@ -91,20 +91,37 @@ def test_cli_unknown_op():
         cli.main(["run", CFG, "bogus", "8", "4", "4"])
 
 
-@pytest.mark.parametrize("op", ["hmult", "hrotate"])
-def test_cli_fused_hpip_routing(op, capsys):
-    """`--fused-hpip` reaches the fused HPIP kernel path (api.USE_FUSED_HPIP)
-    and still decrypt-verifies; the flag is restored after the run."""
-    import homulator_tpu.api as api_mod
+def test_choose_axis_volume_fallback():
+    """--dispatch auto picks the axis with the smaller exact per-device
+    receive volume: hrotate goes to limb at the tiny shape (its
+    automorphism needs no collective there), and the returned volumes are
+    the HLO-reconciled formulas."""
+    from homulator_tpu.params import get_params
+    from homulator_tpu.parallel.limb_sharded import ici_bytes_per_op_limb
+    from homulator_tpu.parallel.sharded import ici_bytes_per_op
 
-    assert api_mod.USE_FUSED_HPIP is False  # documented v5e default
-    rc = cli.main(["run", CFG, op, "8", "4", "4", "--verify", "--iters", "1",
-                   "--fused-hpip"])
-    outp = capsys.readouterr().out
-    assert rc == 0, outp
-    assert "keyswitch=fused-hpip" in outp
-    assert "verify max-abs-err" in outp
-    assert api_mod.USE_FUSED_HPIP is False  # restored by cli.main
+    params = get_params(n=256, max_level=8, alpha=4)
+    axis, b_limb, b_coeff = cli.choose_axis(params, "hmult", 2, 4)
+    assert b_limb == ici_bytes_per_op_limb(params, 4, 2, "hmult")
+    assert b_coeff == ici_bytes_per_op(params, 4, 2, "hmult")
+    assert axis == ("coeff" if b_coeff < b_limb else "limb")
+    axis_r, _, _ = cli.choose_axis(params, "hrotate", 2, 4)
+    assert axis_r == "limb"
+
+
+@pytest.mark.parametrize("ns,level", [(2, 4), (4, 8), (8, 8)])
+def test_choose_axis_by_volume(ns, level):
+    """The rule is the volume comparison and nothing else; without a
+    shardable coefficient tile it is limb."""
+    from homulator_tpu.params import get_params
+
+    params = get_params(n=1 << 12, max_level=8, alpha=4)
+    for op in ("hmult", "hrotate"):
+        axis, b_limb, b_coeff = cli.choose_axis(params, op, ns, level)
+        assert axis == ("coeff" if b_coeff < b_limb else "limb"), (op, ns)
+        axis0, _, none = cli.choose_axis(params, op, ns, level,
+                                         coeff_ok=False)
+        assert axis0 == "limb" and none is None
 
 
 @pytest.mark.parametrize("op", ["hmult", "hrotate"])

@@ -18,7 +18,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     "encrypted_logreg.py",
 ])
 def test_example_runs(script):
-    env = dict(os.environ, HOMULATOR_TPU="")  # CPU path
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
     proc = subprocess.run(
         [sys.executable, os.path.join(ROOT, "examples", script)],
         capture_output=True, text=True, timeout=900, env=env,

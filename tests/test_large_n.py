@@ -1,6 +1,6 @@
 """Large-N cross-check: set-A-scale hmult (N=2^15) through the exact host
 oracle (refimpl + native C++ core when built) vs the device graph running
-the ACCELERATED path (Pallas kernels, interpret mode on CPU) — bit-exact.
+the piecewise pipeline (XLA NTT leaf on CPU) — bit-exact.
 
 Small-N tests (n <= 1024, conftest engines) cover the algebra; this covers
 the full-size tile shapes (n1 x n2 = 2^15), the real set-A limb counts and
@@ -19,7 +19,7 @@ def test_set_a_scale_hmult_bit_exact_vs_oracle():
     n, max_level, alpha = 1 << 15, 28, 28  # parameter set A (dnum = 1)
     level = 12
     params = get_params(n=n, max_level=max_level, alpha=alpha)
-    eng = CkksEngine(params, seed=3, ntt_mode="interpret")
+    eng = CkksEngine(params, seed=3, ntt_mode="xla")
     eng.keygen()
 
     rng = np.random.default_rng(9)
@@ -33,8 +33,8 @@ def test_set_a_scale_hmult_bit_exact_vs_oracle():
     rc1 = eng.ref.encrypt(pt1)
     rc2 = eng.ref.encrypt(pt2)
 
-    # device path (interpret-mode Pallas kernels incl. the fused
-    # bconv + moddown_rescale tail)
+    # device path (piecewise pipeline incl. the bf16 conversion and the
+    # fused moddown_rescale tail)
     ct1 = eng.dc.upload_ct(rc1.data, level, scale)
     ct2 = eng.dc.upload_ct(rc2.data, level, scale)
     dev = eng.hmult(ct1, ct2)

@@ -12,7 +12,7 @@ from homulator_tpu.params import get_params
 @pytest.fixture(scope="module")
 def eng():
     params = get_params(n=256, max_level=8, alpha=4)
-    e = CkksEngine(params, seed=17, ntt_mode="jnp")
+    e = CkksEngine(params, seed=17, ntt_mode="montgomery")
     e.keygen()
     return e
 

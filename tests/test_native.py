@@ -8,9 +8,12 @@ from homulator_tpu.refimpl import RefCkks
 
 from .conftest import random_limbs
 
-pytestmark = pytest.mark.skipif(
-    not native.available(), reason="native/libckks_core.so not built"
-)
+
+@pytest.fixture(autouse=True)
+def _native_lib():
+    """Build (or find) the library at run time; skip without a compiler."""
+    if not native.available():
+        pytest.skip("native library unavailable (no C++ compiler)")
 
 
 def test_native_ntt_matches_numpy(small_params):

@@ -20,17 +20,17 @@ SCALE = 2.0**29
 @pytest.fixture(scope="module")
 def shard_engine():
     params = get_params(n=256, max_level=8, alpha=4)
-    eng = CkksEngine(params, seed=5, ntt_mode="jnp")
+    eng = CkksEngine(params, seed=5, ntt_mode="montgomery")
     eng.keygen()
     return eng
 
 
 @pytest.fixture(scope="module")
-def pallas_engine():
-    """Interpret-mode Pallas engine: the shard_map path runs the SAME
-    kernel code the TPU runs, interpreted on the CPU mesh."""
+def piecewise_engine():
+    """XLA-leaf engine: the shard_map paths run the piecewise pipeline,
+    the same graph the GPU runs, on the CPU mesh."""
     params = get_params(n=256, max_level=8, alpha=4)
-    eng = CkksEngine(params, seed=5, ntt_mode="interpret")
+    eng = CkksEngine(params, seed=5, ntt_mode="xla")
     eng.keygen()
     return eng
 
@@ -126,11 +126,11 @@ def test_coeff_sharded_hmult_matches_single_chip(shard_engine, shape):
 
 
 @pytest.mark.parametrize("coeff", [2, 4, 8])
-def test_shardmap_hmult_pallas_matches_single_chip(pallas_engine, coeff):
-    """The PERFORMANCE multi-chip path: shard_map over the 'coeff' axis
-    running the single-chip Pallas kernels (interpret mode) per shard with
-    explicit all_to_all NTT inter-transposes — bit-exact vs single chip."""
-    eng = pallas_engine
+def test_shardmap_hmult_pallas_matches_single_chip(piecewise_engine, coeff):
+    """shard_map over the 'coeff' axis running the single-chip piecewise
+    graph per shard with explicit all_to_all NTT inter-transposes —
+    bit-exact vs single chip."""
+    eng = piecewise_engine
     level = 8
     if coeff > len(jax.devices()):
         pytest.skip("needs 8 virtual devices")
@@ -143,11 +143,11 @@ def test_shardmap_hmult_pallas_matches_single_chip(pallas_engine, coeff):
     assert np.array_equal(out, _hmult_ref(eng, a, b, level))
 
 
-def test_hrotate_hoisted_pallas_path(pallas_engine):
-    """Hoisted rotations on the Pallas (interpret) path — covers the
-    rep-2 moddown_pair2 tail routing in _hrotate_hoisted_graph — must be
+def test_hrotate_hoisted_pallas_path(piecewise_engine):
+    """Hoisted rotations on the piecewise pipeline — covers the rep-2
+    moddown_pair2 tail routing in _hrotate_hoisted_graph — must be
     bit-identical to per-step hrotate."""
-    eng = pallas_engine
+    eng = piecewise_engine
     level = 8
     ct = _batch(eng, level, 1, seed=31)[0]
     from homulator_tpu.context import Ciphertext
@@ -167,11 +167,10 @@ def test_hrotate_hoisted_pallas_path(pallas_engine):
         assert np.array_equal(np.asarray(got.data), np.asarray(want.data)), s
 
 
-def test_vmap_hmult_single_chip_batched(pallas_engine):
+def test_vmap_hmult_single_chip_batched(piecewise_engine):
     """Single-chip serving shape (scripts/bench_batched.py): jax.vmap over
-    the full hmult graph — every Pallas grid lifts to rep-B — must be
-    bit-exact vs per-example execution."""
-    eng = pallas_engine
+    the full hmult graph must be bit-exact vs per-example execution."""
+    eng = piecewise_engine
     level = 8
     B = 3
     ab = _batch(eng, level, B, seed=21)
@@ -189,10 +188,10 @@ def test_vmap_hmult_single_chip_batched(pallas_engine):
         assert np.array_equal(out[i], _hmult_ref(eng, ab[i], bb[i], level)), i
 
 
-def test_shardmap_hmult_data_parallel_batched(pallas_engine):
+def test_shardmap_hmult_data_parallel_batched(piecewise_engine):
     """data x coeff mesh: batch vmapped inside the shard_map, coefficient
     axis sharded — both axes exercised together."""
-    eng = pallas_engine
+    eng = piecewise_engine
     level = 8
     mesh = make_mesh(shape=(2, 4), n_devices=8, axis_names=("data", "coeff"))
     B = 4
@@ -205,8 +204,8 @@ def test_shardmap_hmult_data_parallel_batched(pallas_engine):
 
 
 def test_shardmap_hmult_jnp_path(shard_engine):
-    """The shard_map orchestration also runs the jnp (Montgomery) table
-    path — same collectives, no Pallas."""
+    """The shard_map orchestration also runs the Montgomery table path —
+    same collectives."""
     eng = shard_engine
     level = 8
     mesh = make_mesh(shape=(1, 8), n_devices=8, axis_names=("data", "coeff"))
@@ -217,10 +216,10 @@ def test_shardmap_hmult_jnp_path(shard_engine):
     assert np.array_equal(out, _hmult_ref(eng, a, b, level))
 
 
-def test_shardmap_hrotate_pallas_matches_single_chip(pallas_engine):
+def test_shardmap_hrotate_pallas_matches_single_chip(piecewise_engine):
     """hrotate on the shard_map path: a2a-routed automorphism + sharded
     key switch, bit-exact vs the single-chip graph."""
-    eng = pallas_engine
+    eng = piecewise_engine
     level = 8
     step = 3
     eng.gen_rotation_key(step)
@@ -251,7 +250,7 @@ def test_automorph_shardperm_route_equals_gather_form(ns, step):
     )
 
     params = get_params(n=256, max_level=8, alpha=4)
-    eng = CkksEngine(params, seed=9, ntt_mode="jnp")
+    eng = CkksEngine(params, seed=9, ntt_mode="montgomery")
     t = params.ntt
     gs = [params.galois_elt(step), params.galois_conj]
     for g in gs:
@@ -295,7 +294,7 @@ def test_coeff_sharded_ntt_matches_single_chip():
     from homulator_tpu.ops.ntt import ntt as ntt_graph, intt as intt_graph
 
     params = get_params(n=1024, max_level=4, alpha=2)
-    eng = CkksEngine(params, seed=6, ntt_mode="jnp")
+    eng = CkksEngine(params, seed=6, ntt_mode="montgomery")
     nb = eng.dc.ntt_basis(eng.dc.main_rows(4))
     n1, n2 = nb.n1, nb.n2
     mesh = make_mesh(shape=(1, 8), n_devices=8)
@@ -315,17 +314,17 @@ def test_coeff_sharded_ntt_matches_single_chip():
 
 
 @pytest.mark.parametrize("op", ["hmult", "hrotate"])
-def test_ici_bytes_reconcile_with_hlo(pallas_engine, op):
+def test_ici_bytes_reconcile_with_hlo(piecewise_engine, op):
     """ici_bytes_per_op == bytes counted over the all_to_all/all_gather
     collectives of the LOWERED shard_map program — drift in the collective
-    schedule breaks this instead of silently invalidating published ICI
-    numbers (the analog of the reference's NoC_Mem_Chip counter,
+    schedule breaks this instead of silently invalidating published
+    volumes (the analog of the reference's NoC_Mem_Chip counter,
     src/mem.cpp:95)."""
     from homulator_tpu.parallel.sharded import (
         ici_bytes_from_lowered, ici_bytes_per_op,
     )
 
-    eng = pallas_engine
+    eng = piecewise_engine
     level = 8
     ns = 4
     mesh = make_mesh(shape=(1, ns), n_devices=ns, axis_names=("data", "coeff"))
@@ -354,14 +353,14 @@ def test_ici_bytes_reconcile_with_hlo(pallas_engine, op):
     (4, 4),  # beta = 1 (level == alpha: single digit, no pad)
     (4, 3),  # beta = 1, partial digit AND padded rows
 ])
-def test_limb_hmult_matches_single_chip(pallas_engine, ns, level):
+def test_limb_hmult_matches_single_chip(piecewise_engine, ns, level):
     """Row-sharded hmult == single-chip on real rows, zeros on pad rows —
     including non-divisible levels (7, 5: padded blocks)."""
     from homulator_tpu.parallel.limb_sharded import (
         evk_limb_row_order, make_limb_hmult, pad_main_rows,
     )
 
-    eng = pallas_engine
+    eng = piecewise_engine
     if ns > len(jax.devices()):
         pytest.skip("needs 8 virtual devices")
     mesh = make_mesh(shape=(ns,), n_devices=ns, axis_names=("limb",))
@@ -378,14 +377,15 @@ def test_limb_hmult_matches_single_chip(pallas_engine, ns, level):
 
 
 @pytest.mark.parametrize("ns,level", [(2, 8), (4, 8), (8, 8), (4, 6)])
-def test_limb_hrotate_matches_single_chip(pallas_engine, ns, level):
+def test_limb_hrotate_matches_single_chip(piecewise_engine, ns, level):
     """Row-sharded hrotate == single-chip; the automorphism is row-local
-    (zero ICI on this axis — why the reference dispatches AUTO by limb)."""
+    (no collective on this axis — why the reference dispatches AUTO by
+    limb)."""
     from homulator_tpu.parallel.limb_sharded import (
         evk_limb_row_order, make_limb_hrotate, pad_main_rows,
     )
 
-    eng = pallas_engine
+    eng = piecewise_engine
     if ns > len(jax.devices()):
         pytest.skip("needs 8 virtual devices")
     step = 3
@@ -403,7 +403,7 @@ def test_limb_hrotate_matches_single_chip(pallas_engine, ns, level):
     assert not out[:, level:].any(), "pad rows must be zeroed"
 
 
-def test_limb_hmult_data_parallel_batched(pallas_engine):
+def test_limb_hmult_data_parallel_batched(piecewise_engine):
     """data x limb mesh: ciphertext batch vmapped inside the shard_map,
     RNS rows sharded — both axes exercised together (the reference's
     batch round-robin composed with its limb dispatch)."""
@@ -411,7 +411,7 @@ def test_limb_hmult_data_parallel_batched(pallas_engine):
         evk_limb_row_order, make_limb_hmult, pad_main_rows,
     )
 
-    eng = pallas_engine
+    eng = piecewise_engine
     level = 8
     ns = 4
     mesh = make_mesh(shape=(2, ns), n_devices=8,
@@ -430,7 +430,7 @@ def test_limb_hmult_data_parallel_batched(pallas_engine):
 
 
 @pytest.mark.parametrize("op", ["hmult", "hrotate"])
-def test_limb_ici_bytes_reconcile_with_hlo(pallas_engine, op):
+def test_limb_ici_bytes_reconcile_with_hlo(piecewise_engine, op):
     """ici_bytes_per_op_limb == bytes counted over the all_gathers of the
     LOWERED limb-sharded program (same discipline as the coeff path)."""
     from homulator_tpu.parallel.limb_sharded import (
@@ -439,7 +439,7 @@ def test_limb_ici_bytes_reconcile_with_hlo(pallas_engine, op):
     )
     from homulator_tpu.parallel.sharded import ici_bytes_from_lowered
 
-    eng = pallas_engine
+    eng = piecewise_engine
     level = 8
     ns = 4
     mesh = make_mesh(shape=(ns,), n_devices=ns, axis_names=("limb",))
@@ -460,7 +460,7 @@ def test_limb_ici_bytes_reconcile_with_hlo(pallas_engine, op):
 
 def test_coeff_shard_ok_predicate():
     """One shardability predicate, shared by cli.py and
-    __graft_entry__.dryrun_multichip (VERDICT r4 weak #6)."""
+    __graft_entry__.dryrun_multichip."""
     from homulator_tpu.parallel.mesh import coeff_shard_ok
 
     # N=2^16: n1 = n2 = 256 -> ok through ns=32 (tile 8), not 64
@@ -469,18 +469,17 @@ def test_coeff_shard_ok_predicate():
     assert not coeff_shard_ok(256, 256, 64)
     # non-dividing mesh
     assert not coeff_shard_ok(256, 256, 3)
-    # N=256 toy params: 16x16 tiles, kernel tiles only to ns=2
+    # N=256 toy params: 16x16 tiles, 8-row shards only to ns=2
     assert coeff_shard_ok(16, 16, 2)
     assert not coeff_shard_ok(16, 16, 4)
-    # interpret-mode callers (dryrun) relax the kernel minimum
+    # the toy dryrun relaxes the minimum
     assert coeff_shard_ok(16, 16, 4, min_tile=4)
 
 
-def test_hrotate_gather_route_fallback(pallas_engine):
-    """A route with pairs=None (the BlockAlignmentError sentinel,
-    ADVICE r4) must run the all_gather automorphism fallback inside
+def test_hrotate_gather_route_fallback(piecewise_engine):
+    """A route with pairs=None (the BlockAlignmentError sentinel) must run the all_gather automorphism fallback inside
     make_shardmap_hrotate and stay bit-exact."""
-    eng = pallas_engine
+    eng = piecewise_engine
     level = 8
     step = 3
     eng.gen_rotation_key(step)
@@ -500,7 +499,7 @@ def test_hrotate_gather_route_fallback(pallas_engine):
 
 def test_ici_bytes_route_identity_flag():
     """route_identity=True drops the 2 automorph ppermutes from the coeff
-    hrotate ICI bill (ADVICE r4: identity block maps emit no collective)."""
+    hrotate bill (identity block maps emit no collective)."""
     from homulator_tpu.parallel.sharded import ici_bytes_per_op
 
     params = get_params(n=256, max_level=8, alpha=4)
@@ -511,68 +510,16 @@ def test_ici_bytes_route_identity_flag():
     assert full - ident == 2 * level * params.n * 4 // ns
 
 
-@pytest.mark.slow
-@pytest.mark.parametrize("ns", [4, 8])
-def test_packed_coeff_shard_matches_unpacked(ns):
-    """Lane-packed narrow-shard routing (N=2^14 -> 128x128 tiles, so an
-    ns-way coeff mesh gives c = 128/ns < 128 lanes): make_shardmap_hmult
-    with packed tables must be bit-exact vs packed=False and vs the
-    single-chip graph (VERDICT r4 missing #2)."""
-    params = get_params(n=1 << 14, max_level=8, alpha=4)
-    eng = CkksEngine(params, seed=11, ntt_mode="interpret")
-    eng.keygen()
-    level = 6
-    mesh = make_mesh(shape=(1, ns), n_devices=ns,
-                     axis_names=("data", "coeff"))
-    a = _batch(eng, level, 2, seed=31)
-    # packed tables really built?
-    kt = eng.dc.keyswitch_tables(level, shard_axis="coeff", pack_ns=ns)
-    assert kt.main_nt.pfwd_packed, "packed tables not built"
-    f_packed = make_shardmap_hmult(eng.dc, level, mesh)
-    f_plain = make_shardmap_hmult(eng.dc, level, mesh, packed=False)
-    out_p = np.asarray(f_packed(a[0], a[1], eng.relin_key))
-    out_u = np.asarray(f_plain(a[0], a[1], eng.relin_key))
-    assert np.array_equal(out_p, out_u)
-    ref = _hmult_ref(eng, a[0], a[1], level)
-    assert np.array_equal(out_p, ref)
-
-
-@pytest.mark.slow
-def test_packed_coeff_shard_hrotate_matches_unpacked():
-    """Same check for hrotate (automorph route + packed keyswitch)."""
-    ns = 4
-    params = get_params(n=1 << 14, max_level=8, alpha=4)
-    eng = CkksEngine(params, seed=12, ntt_mode="interpret")
-    eng.keygen()
-    level = 6
-    step = 2
-    eng.gen_rotation_key(step)
-    mesh = make_mesh(shape=(1, ns), n_devices=ns,
-                     axis_names=("data", "coeff"))
-    a = _batch(eng, level, 1, seed=37)[0]
-    g = eng.params.galois_elt(step)
-    route = eng.dc.automorph_shard_route(g, ns)
-    f_packed = make_shardmap_hrotate(eng.dc, level, mesh)
-    f_plain = make_shardmap_hrotate(eng.dc, level, mesh, packed=False)
-    out_p = np.asarray(f_packed(a, route, eng.rot_keys[step]))
-    out_u = np.asarray(f_plain(a, route, eng.rot_keys[step]))
-    assert np.array_equal(out_p, out_u)
-    perm = eng.dc.automorph_perm(g)
-    ref = np.asarray(_hrotate_graph(
-        a, perm, eng.rot_keys[step], eng.dc.keyswitch_tables(level)))
-    assert np.array_equal(out_p, ref)
-
-
 @pytest.mark.parametrize("shape", [(2, 2), (4, 2)])
-def test_hybrid_hmult_matches_single_chip(pallas_engine, shape):
-    """2-D limb x coeff hybrid mesh (VERDICT r4 missing #3): rows over
+def test_hybrid_hmult_matches_single_chip(piecewise_engine, shape):
+    """2-D limb x coeff hybrid mesh: rows over
     'limb', columns over 'coeff', transforms phase-split within the coeff
     subgroup — bit-exact vs the single-chip graph."""
     from homulator_tpu.parallel.limb_sharded import (
         evk_limb_row_order, make_hybrid_hmult, pad_main_rows,
     )
 
-    eng = pallas_engine
+    eng = piecewise_engine
     level = 8
     ns_l, ns_c = shape
     mesh = make_mesh(shape=shape, n_devices=ns_l * ns_c,
@@ -587,14 +534,14 @@ def test_hybrid_hmult_matches_single_chip(pallas_engine, shape):
     assert np.array_equal(out[:, : level - 1], ref)
 
 
-def test_hybrid_hrotate_matches_single_chip(pallas_engine):
+def test_hybrid_hrotate_matches_single_chip(piecewise_engine):
     """Hybrid hrotate: limb-row-local + coeff-subgroup ppermute
     automorphism, bit-exact vs single chip."""
     from homulator_tpu.parallel.limb_sharded import (
         evk_limb_row_order, make_hybrid_hrotate, pad_main_rows,
     )
 
-    eng = pallas_engine
+    eng = piecewise_engine
     level = 8
     step = 3
     ns_l, ns_c = 4, 2
@@ -615,7 +562,7 @@ def test_hybrid_hrotate_matches_single_chip(pallas_engine):
 
 
 @pytest.mark.parametrize("op", ["hmult", "hrotate"])
-def test_hybrid_ici_bytes_reconcile_with_hlo(pallas_engine, op):
+def test_hybrid_ici_bytes_reconcile_with_hlo(piecewise_engine, op):
     """ici_bytes_per_op_hybrid == bytes counted over the collectives of
     the LOWERED hybrid program (same discipline as both 1-D paths).
     Mixed-axis counting: gathers/a2a/ppermute each receive fractions of
@@ -627,7 +574,7 @@ def test_hybrid_ici_bytes_reconcile_with_hlo(pallas_engine, op):
         make_hybrid_hrotate, pad_main_rows,
     )
 
-    eng = pallas_engine
+    eng = piecewise_engine
     level = 8
     ns_l, ns_c = 4, 2
     mesh = make_mesh(shape=(ns_l, ns_c), n_devices=8,
@@ -669,51 +616,14 @@ def test_hybrid_ici_bytes_reconcile_with_hlo(pallas_engine, op):
     assert total == analytic, (op, total, analytic, route_ident)
 
 
-@pytest.mark.slow
-@pytest.mark.parametrize("op", ["hmult", "hrotate"])
-def test_ici_bytes_reconcile_packed(op):
-    """ici_bytes_per_op with the lane-packed routing active (N=2^14,
-    ns=4 -> c=32, k=4): the formula's per-call k-multiple round-up must
-    match the padded lane-group rows the lowered packed all_to_alls
-    actually carry."""
-    from homulator_tpu.ops.ntt_pallas import pack_k_for
-    from homulator_tpu.parallel.sharded import (
-        ici_bytes_from_lowered, ici_bytes_per_op,
-    )
-
-    params = get_params(n=1 << 14, max_level=8, alpha=4)
-    assert pack_k_for(params.ntt.n1, params.ntt.n2, 4) == 4
-    eng = CkksEngine(params, seed=13, ntt_mode="interpret")
-    eng.keygen()
-    level, ns = 8, 4
-    mesh = make_mesh(shape=(1, ns), n_devices=ns,
-                     axis_names=("data", "coeff"))
-    a = _batch(eng, level, 1, seed=61)[0]
-    if op == "hmult":
-        lowered = make_shardmap_hmult(eng.dc, level, mesh).lower(
-            a, a, eng.relin_key)
-        route_ident = False
-    else:
-        eng.gen_rotation_key(3)
-        route = eng.dc.automorph_shard_route(eng.params.galois_elt(3), ns)
-        route_ident = route[2]
-        lowered = make_shardmap_hrotate(eng.dc, level, mesh).lower(
-            a, route, eng.rot_keys[3])
-    measured = ici_bytes_from_lowered(lowered.as_text(), ns)
-    analytic = ici_bytes_per_op(eng.params, level, ns, op,
-                                route_identity=route_ident)
-    assert measured == analytic, (op, measured, analytic)
-
-
-def test_hybrid_hmult_data_parallel_batched(pallas_engine):
+def test_hybrid_hmult_data_parallel_batched(piecewise_engine):
     """3-D data x limb x coeff mesh: batch vmapped inside the hybrid
-    shard_map — the zero-DCN-per-op serving layout (2 hosts = the data
-    axis)."""
+    shard_map."""
     from homulator_tpu.parallel.limb_sharded import (
         evk_limb_row_order, make_hybrid_hmult, pad_main_rows,
     )
 
-    eng = pallas_engine
+    eng = piecewise_engine
     level = 8
     mesh = make_mesh(shape=(2, 2, 2), n_devices=8,
                      axis_names=("data", "limb", "coeff"))
@@ -730,14 +640,14 @@ def test_hybrid_hmult_data_parallel_batched(pallas_engine):
         assert np.array_equal(out[i][:, : level - 1], ref), i
 
 
-def test_hybrid_hrotate_gather_route_fallback(pallas_engine):
+def test_hybrid_hrotate_gather_route_fallback(piecewise_engine):
     """The pairs=None gather-route sentinel must also work inside the
     hybrid mesh (all_gather over the coeff subgroup) and stay bit-exact."""
     from homulator_tpu.parallel.limb_sharded import (
         evk_limb_row_order, make_hybrid_hrotate, pad_main_rows,
     )
 
-    eng = pallas_engine
+    eng = piecewise_engine
     level = 8
     step = 3
     ns_l, ns_c = 4, 2
@@ -755,3 +665,26 @@ def test_hybrid_hrotate_gather_route_fallback(pallas_engine):
     ref = np.asarray(_hrotate_graph(
         a, perm, eng.rot_keys[step], eng.dc.keyswitch_tables(level)))
     assert np.array_equal(out[:, :level], ref)
+
+
+def test_limb_collective_count_matches_hlo(piecewise_engine):
+    """limb_collective_count == number of all_gathers in the lowered
+    limb-sharded programs (chunked gathers: 2 sites x G chunks)."""
+    import re
+
+    from homulator_tpu.parallel.limb_sharded import (
+        evk_limb_row_order, limb_collective_count, make_limb_hmult,
+        pad_main_rows,
+    )
+
+    eng = piecewise_engine
+    params = eng.params
+    level, ns = 8, 4
+    mesh = make_mesh(shape=(ns,), n_devices=ns, axis_names=("limb",))
+    a_p = pad_main_rows(_batch(eng, level, 1, seed=3)[0], level, ns)
+    order = evk_limb_row_order(params, level, ns)
+    evk_l = jnp.take(eng.relin_key, jnp.asarray(order), axis=2)
+    lowered = make_limb_hmult(eng.dc, level, mesh).lower(a_p, a_p, evk_l)
+    n_gathers = len(re.findall(r"stablehlo\.all_gather",
+                               lowered.as_text()))
+    assert n_gathers == limb_collective_count(params, level, ns, "hmult")
